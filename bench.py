@@ -43,17 +43,17 @@ import time
 
 import numpy as np
 
-import goldrush_tpu  # noqa: F401  (enables x64 + compile cache)
+import goldrush_jax  # noqa: F401  (enables x64 + compile cache)
 import jax
 import jax.numpy as jnp
 
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.ops.nthash import build_seed_family
-from goldrush_tpu.ops.seeds import make_seed_pattern
-from goldrush_tpu.parallel.mesh import classify_step
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.ops.nthash import build_seed_family
+from goldrush_jax.ops.seeds import make_seed_pattern
+from goldrush_jax.parallel.mesh import classify_step
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.utils import device, synth
 
 # measured: 37.4 reads/s at 1 thread on the exact bench dataset (see
 # module docstring) x 48 idealized-linear threads
@@ -161,15 +161,14 @@ def classify_microbench() -> dict:
 
 
 def main():
+    device.require_gpu()
     workdir = tempfile.mkdtemp(prefix="goldrush_bench_")
     reads = make_dataset(workdir)
 
     # PRIMARY: the rank-compressed (memory-parity) filter at the shipped
-    # throughput settings — both the at-scale configuration (human G needs
-    # it, compressed.py:18-21) AND the fastest: its 57 MB rank-indexed id
-    # table keeps the per-recruit insert scatter in the fast small-table
-    # regime (~14 ns/elem vs ~92 ns into the 570 MB direct array —
-    # tools/profile_prims.py, round 4)
+    # throughput settings — the at-scale configuration (human G needs it,
+    # compressed.py:18-20); its 57 MB rank-indexed id table is 10x smaller
+    # than the 570 MB direct array the per-recruit insert scatters into
     throughput = measure_engine(
         reads, workdir, "cz",
         frame_stride=STRIDE, probe_seeds=PROBE_SEEDS, recheck="optimistic",
@@ -207,7 +206,7 @@ def main():
         "replay_s": throughput["replay_s"],
         "recruits": throughput["recruits"],
         **micro,
-        "device": str(jax.devices()[0]),
+        "device": {**device.jax_device(), "cards": device.cards()},
     }
     print(json.dumps(result))
 

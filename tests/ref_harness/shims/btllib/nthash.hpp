@@ -1,7 +1,7 @@
 // Shim btllib/nthash.hpp for compiling the reference goldrush-path in this
 // environment (real btllib is not vendored by the reference and cannot be
 // downloaded here).  Implements exactly the hash semantics of
-// goldrush_tpu/ops/nthash_np.py (the executable hash spec both the JAX
+// goldrush_jax/ops/nthash_np.py (the executable hash spec both the JAX
 // kernels and this harness are held to):
 //
 //   fwd(p) = XOR_{j in care} rol64(TAB[s[p+j]], span-1-j)

@@ -7,8 +7,8 @@ import numpy as np
 
 import tests.conftest  # noqa: F401
 from tests.conftest import FIXTURES
-from goldrush_tpu.path import oracle
-from goldrush_tpu.path.classify import classify_batch
+from goldrush_jax.path import oracle
+from goldrush_jax.path.classify import classify_batch
 
 THRESHOLD, U_MIN, A_MAX = 10, 5, 1
 K = 8

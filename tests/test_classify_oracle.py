@@ -4,7 +4,7 @@
 import json
 
 from tests.conftest import FIXTURES
-from goldrush_tpu.path import oracle
+from goldrush_jax.path import oracle
 
 
 def test_oracle_matches_reference_fixtures():

@@ -7,15 +7,15 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from goldrush_tpu.utils import synth
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.io import fastq
-from goldrush_tpu.mibf import compressed as cz
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.mibf.mibf_np import fastrange64
-from goldrush_tpu.ops.nthash import build_seed_family, hash_positions
-from goldrush_tpu.ops.seeds import make_seed_pattern
-from goldrush_tpu.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.io import fastq
+from goldrush_jax.mibf import compressed as cz
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.mibf.mibf_np import fastrange64
+from goldrush_jax.ops.nthash import build_seed_family, hash_positions
+from goldrush_jax.ops.seeds import make_seed_pattern
+from goldrush_jax.path.engine import GoldenPathEngine
 
 RNG = np.random.default_rng(61)
 SIZE = 70_001
@@ -54,9 +54,9 @@ def test_insert_and_vote_parity_with_rank_oracle():
     accept rule keys on rank exactly like the reference,
     MIBFConstructSupport.hpp:275 — direct mode keys on the slot, so the two
     modes may legitimately diverge on contested slots)."""
-    from goldrush_tpu.mibf.mibf_np import (MibfOracle, PRESENT_BIT as OP,
+    from goldrush_jax.mibf.mibf_np import (MibfOracle, PRESENT_BIT as OP,
                                            ID_MASK as OIM)
-    from goldrush_tpu.ops import nthash_np as onthash
+    from goldrush_jax.ops import nthash_np as onthash
     pool = [RNG.integers(0, 4, 400).astype(np.uint8) for _ in range(5)]
     oracle = MibfOracle(SIZE, key_mode="rank")
     presence = jnp.zeros((cz.fill_rows(SIZE), cz.FILL_COLS), dtype=jnp.uint8)

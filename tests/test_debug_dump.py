@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.path.classify import DEBUG_PASSES
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.path.classify import DEBUG_PASSES
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
 
 
 def test_debug_dumps_per_pass(tmp_path, capfd):

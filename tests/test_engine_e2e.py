@@ -1,4 +1,4 @@
-"""End-to-end parity: the TPU streaming engine vs the sequential oracle
+"""End-to-end parity: the JAX streaming engine vs the sequential oracle
 engine on a synthetic genome, plus golden-path quality properties."""
 
 import dataclasses
@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.path.oracle_engine import OracleEngine
+from goldrush_jax.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.path.oracle_engine import OracleEngine
 
 # small config: 60kb genome, 3kb reads, small tiles so smoothing engages
 CFG = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
@@ -30,9 +30,9 @@ def dataset(tmp_path_factory):
     return d, path, genome, reads
 
 
-def run_tpu(tmp, path, batch, silver=False, **over):
+def run_engine(tmp, path, batch, silver=False, **over):
     cfg = PathConfig(input=path, silver_path=silver,
-                     prefix_file=str(tmp / f"tpu_b{batch}_{silver}"),
+                     prefix_file=str(tmp / f"eng_b{batch}_{silver}"),
                      batch_reads=batch, keep_filter=True,
                      **{**CFG, **over})
     eng = GoldenPathEngine(cfg)
@@ -54,7 +54,7 @@ def recruited_from_oracle(all_stats):
 
 
 def recruited_from_files(prefix, silver, n_paths=1):
-    from goldrush_tpu.io import fastq
+    from goldrush_jax.io import fastq
     out = []
     paths = ([f"{prefix}_{i}.fq" for i in range(1, n_paths + 1)]
              if silver else [f"{prefix}.fa"])
@@ -70,7 +70,7 @@ def recruited_from_files(prefix, silver, n_paths=1):
 @pytest.fixture(scope="module")
 def batch1_run(dataset):
     tmp, path, genome, reads = dataset
-    return run_tpu(tmp, path, batch=1, silver=False)
+    return run_engine(tmp, path, batch=1, silver=False)
 
 
 def test_golden_path_parity_batch1(dataset, batch1_run):
@@ -79,7 +79,7 @@ def test_golden_path_parity_batch1(dataset, batch1_run):
     oeng, ostats = run_oracle(tmp, path, silver=False)
     teng, tstats = batch1_run
     want = recruited_from_oracle(ostats)
-    got = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
+    got = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
     assert len(got) == len(want), (len(got), len(want))
     for rec, (rid, sfx, seq) in zip(got, want):
         assert rec.id == rid + sfx
@@ -100,9 +100,9 @@ def test_golden_path_parity_batch1(dataset, batch1_run):
 def test_golden_path_batched_equivalence(dataset, batch1_run):
     """Optimistic batching must give the same golden path on this dataset."""
     tmp, path, genome, reads = dataset
-    _, _ = run_tpu(tmp, path, batch=16, silver=False)
-    got1 = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
-    got16 = recruited_from_files(str(tmp / "tpu_b16_False"), silver=False)
+    _, _ = run_engine(tmp, path, batch=16, silver=False)
+    got1 = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
+    got16 = recruited_from_files(str(tmp / "eng_b16_False"), silver=False)
     assert [(r.id, r.seq) for r in got16] == [(r.id, r.seq) for r in got1]
 
 
@@ -110,7 +110,7 @@ def test_golden_path_covers_genome(dataset, batch1_run):
     """Recruited reads should tile ~the whole genome about once (the golden
     path property), not more than ~1.6x."""
     tmp, path, genome, reads = dataset
-    got = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
+    got = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
     total = sum(len(r.seq) for r in got)
     G = len(genome)
     assert 0.8 * G <= total <= 1.7 * G, total
@@ -134,10 +134,10 @@ def test_silver_paths_rotation(dataset):
     """Silver mode: M paths, each ~ratio*G bases, rotation resets IDs."""
     tmp, path, genome, reads = dataset
     oeng, ostats = run_oracle(tmp, path, silver=True, max_paths=2, ratio=0.5)
-    teng, tstats = run_tpu(tmp, path, batch=1, silver=True, max_paths=2,
+    teng, tstats = run_engine(tmp, path, batch=1, silver=True, max_paths=2,
                            ratio=0.5)
     want = recruited_from_oracle(ostats)
-    got = recruited_from_files(str(tmp / "tpu_b1_True"), silver=True,
+    got = recruited_from_files(str(tmp / "eng_b1_True"), silver=True,
                                n_paths=2)
     assert len(got) == len(want)
     for rec, (rid, sfx, seq) in zip(got, want):
@@ -152,9 +152,9 @@ def test_engine_multi_device_parity(dataset, batch1_run):
     path and filter state vs single-device."""
     tmp, path, genome, reads = dataset
     teng1, _ = batch1_run
-    teng8, _ = run_tpu(tmp, path, batch=16, silver=False, devices=8)
-    got1 = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
-    got8 = recruited_from_files(str(tmp / "tpu_b16_False"), silver=False)
+    teng8, _ = run_engine(tmp, path, batch=16, silver=False, devices=8)
+    got1 = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
+    got8 = recruited_from_files(str(tmp / "eng_b16_False"), silver=False)
     assert [(r.id, r.seq) for r in got8] == [(r.id, r.seq) for r in got1]
     np.testing.assert_array_equal(np.asarray(teng8.state.words),
                                   np.asarray(teng1.state.words))
@@ -166,8 +166,8 @@ def test_filter_file_excludes_reads(dataset, tmp_path):
     """-f: listed read names are skipped in pass 2 (but still fill presence
     in pass 1 — goldrush_path.cpp:1163-1170)."""
     tmp, path, genome, reads = dataset
-    teng1, _ = run_tpu(tmp_path, path, batch=8, silver=False)
-    got = recruited_from_files(str(tmp_path / "tpu_b8_False"), silver=False)
+    teng1, _ = run_engine(tmp_path, path, batch=8, silver=False)
+    got = recruited_from_files(str(tmp_path / "eng_b8_False"), silver=False)
     assert got, "baseline run recruited nothing"
     first = got[0].id.rsplit("_", 1)[0]
     ff = tmp_path / "exclude.txt"
@@ -187,9 +187,9 @@ def test_recheck_optimistic_smoke(dataset, batch1_run):
     """recheck=optimistic runs and produces a sane golden path (recruit set
     may drift from exact in recruit-dense phases by design)."""
     tmp, path, genome, reads = dataset
-    run_tpu(tmp, path, batch=16, silver=False, recheck="optimistic")
-    got1 = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
-    got = recruited_from_files(str(tmp / "tpu_b16_False"), silver=False)
+    run_engine(tmp, path, batch=16, silver=False, recheck="optimistic")
+    got1 = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
+    got = recruited_from_files(str(tmp / "eng_b16_False"), silver=False)
     a = {r.id for r in got1}
     b = {r.id for r in got}
     jacc = len(a & b) / max(len(a | b), 1)
@@ -217,7 +217,7 @@ def test_ultralong_reads_uncapped(tmp_path):
     synth.write_fastq(path, mixed)
     over = dict(genome_size=G, min_length=1000)
     cfg = PathConfig(input=path, silver_path=False,
-                     prefix_file=str(tmp_path / "tpu"),
+                     prefix_file=str(tmp_path / "eng"),
                      batch_reads=8, **{**CFG, **over})
     eng = GoldenPathEngine(cfg)
     tstats = eng.run()
@@ -226,7 +226,7 @@ def test_ultralong_reads_uncapped(tmp_path):
     oeng = OracleEngine(ocfg)
     ostats = oeng.run()
     want = recruited_from_oracle(ostats)
-    got = recruited_from_files(str(tmp_path / "tpu"), silver=False)
+    got = recruited_from_files(str(tmp_path / "eng"), silver=False)
     assert len(got) == len(want), (len(got), len(want))
     for rec, (rid, sfx, seq) in zip(got, want):
         assert rec.id == rid + sfx
@@ -244,10 +244,10 @@ def test_engine_banked_filter_parity(dataset, batch1_run):
     single-device — the capacity lever for filters beyond one chip's HBM."""
     tmp, path, genome, reads = dataset
     teng1, _ = batch1_run
-    tengb, _ = run_tpu(tmp, path, batch=16, silver=False, devices=8,
+    tengb, _ = run_engine(tmp, path, batch=16, silver=False, devices=8,
                        model_shards=2)
-    got1 = recruited_from_files(str(tmp / "tpu_b1_False"), silver=False)
-    gotb = recruited_from_files(str(tmp / "tpu_b16_False"), silver=False)
+    got1 = recruited_from_files(str(tmp / "eng_b1_False"), silver=False)
+    gotb = recruited_from_files(str(tmp / "eng_b16_False"), silver=False)
     assert [(r.id, r.seq) for r in gotb] == [(r.id, r.seq) for r in got1]
     np.testing.assert_array_equal(np.asarray(tengb.state.words),
                                   np.asarray(teng1.state.words))

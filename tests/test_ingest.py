@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.io import fastq
-from goldrush_tpu.io.ingest import ReadStream
-from goldrush_tpu.io.native_reader import native_available
-from goldrush_tpu.ops.phred import phred_stats, sum_phred
-from goldrush_tpu.utils import synth
+from goldrush_jax.io import fastq
+from goldrush_jax.io.ingest import ReadStream
+from goldrush_jax.io.native_reader import native_available
+from goldrush_jax.ops.phred import phred_stats, sum_phred
+from goldrush_jax.utils import synth
 
 
 @pytest.fixture(scope="module")

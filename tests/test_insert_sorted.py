@@ -6,8 +6,8 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.mibf import compressed as cz
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.mibf import compressed as cz
 
 
 def make_params(size=10_007, T=12, TL=50):

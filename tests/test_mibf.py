@@ -8,11 +8,11 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from goldrush_tpu.ops.seeds import make_seed_pattern
-from goldrush_tpu.ops import nthash_np as onthash
-from goldrush_tpu.ops.nthash import build_seed_family, hash_positions
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.mibf.mibf_np import MibfOracle, fastrange64
+from goldrush_jax.ops.seeds import make_seed_pattern
+from goldrush_jax.ops import nthash_np as onthash
+from goldrush_jax.ops.nthash import build_seed_family, hash_positions
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.mibf.mibf_np import MibfOracle, fastrange64
 
 RNG = np.random.default_rng(123)
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)

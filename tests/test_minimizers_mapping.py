@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.io import fastq
-from goldrush_tpu.ops.minimizers import batch_minimizers, minimizers_np
-from goldrush_tpu.stages import mapping
+from goldrush_jax.utils import synth
+from goldrush_jax.io import fastq
+from goldrush_jax.ops.minimizers import batch_minimizers, minimizers_np
+from goldrush_jax.stages import mapping
 
 RNG = np.random.default_rng(17)
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)

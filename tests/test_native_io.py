@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.io import fastq
-from goldrush_tpu.io.native_reader import native_available, read_native_blocks
-from goldrush_tpu.ops.phred import phred_stats, sum_phred
+from goldrush_jax.utils import synth
+from goldrush_jax.io import fastq
+from goldrush_jax.io.native_reader import native_available, read_native_blocks
+from goldrush_jax.ops.phred import phred_stats, sum_phred
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="g++/zlib unavailable")
@@ -84,3 +84,21 @@ def test_invalid_bases(files, tmp_path):
     got = collect(p)
     assert got[0][7] == 1 and got[1][7] == 0
     assert got[0][3][4] == 255        # N encoded as invalid
+
+
+def test_native_reader_builds_from_source(tmp_path):
+    """With no shared object on disk, the reader compiles from seqio.cpp
+    (the .so is never committed) into a loadable library."""
+    import ctypes
+
+    from goldrush_jax.io.native import build
+
+    so = tmp_path / "_seqio.so"
+    assert not so.exists()
+    assert build.build(build._SRC, str(so))
+    lib = ctypes.CDLL(str(so))
+    assert hasattr(lib, "seqio_open") and hasattr(lib, "seqio_read_block")
+    assert [p.name for p in tmp_path.iterdir()] == ["_seqio.so"]
+    mtime = so.stat().st_mtime_ns
+    assert build.build(build._SRC, str(so))      # up to date: no rebuild
+    assert so.stat().st_mtime_ns == mtime

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.ops.seeds import make_seed_pattern
-from goldrush_tpu.utils.ntcard import NtCardParams, estimate_genome_size
+from goldrush_jax.utils import synth
+from goldrush_jax.ops.seeds import make_seed_pattern
+from goldrush_jax.utils.ntcard import NtCardParams, estimate_genome_size
 
 
 def test_f0_estimate(tmp_path):
@@ -25,8 +25,8 @@ def test_f0_estimate(tmp_path):
 
 def test_engine_uses_ntcard(tmp_path):
     # PathConfig.ntcard routes hash-universe sizing through the estimator
-    from goldrush_tpu.config import PathConfig
-    from goldrush_tpu.path.engine import GoldenPathEngine
+    from goldrush_jax.config import PathConfig
+    from goldrush_jax.path.engine import GoldenPathEngine
     genome = synth.random_genome(30_000, seed=93)
     reads = synth.simulate_reads(genome, 60, 3000, seed=94)
     path = str(tmp_path / "r.fq")

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401  (JAX platform env)
-from goldrush_tpu.ops.seeds import make_seed_pattern
-from goldrush_tpu.ops import nthash_np as oracle
-from goldrush_tpu.ops.nthash import build_seed_family, hash_positions
+from goldrush_jax.ops.seeds import make_seed_pattern
+from goldrush_jax.ops import nthash_np as oracle
+from goldrush_jax.ops.nthash import build_seed_family, hash_positions
 
 RNG = np.random.default_rng(7)
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)

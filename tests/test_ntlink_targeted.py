@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.stages import ntlink, targeted
+from goldrush_jax.utils import synth
+from goldrush_jax.stages import ntlink, targeted
 
 
 def make_fragmented_assembly(genome, breaks, gap=200):

@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.config import PipelineConfig, stage_filenames
-from goldrush_tpu.io import fastq
-from goldrush_tpu.pipeline import run_pipeline
-from goldrush_tpu.utils.stats import assembly_stats
+from tests.conftest import REPO
+from goldrush_jax.utils import synth
+from goldrush_jax.config import PipelineConfig, stage_filenames
+from goldrush_jax.io import fastq
+from goldrush_jax.pipeline import run_pipeline
+from goldrush_jax.utils.stats import assembly_stats
 
 
 @pytest.fixture(scope="module")
@@ -94,13 +95,13 @@ def test_pipeline_resume(workdir):
 
 
 def test_cli_version_and_help():
-    r = subprocess.run([sys.executable, "-m", "goldrush_tpu.cli", "version"],
-                       capture_output=True, text=True, cwd="/root/repo",
+    r = subprocess.run([sys.executable, "-m", "goldrush_jax.cli", "version"],
+                       capture_output=True, text=True, cwd=str(REPO),
                        env={**os.environ, "JAX_PLATFORMS_FORCE": "0"})
-    assert "goldrush-tpu version" in r.stdout
-    r = subprocess.run([sys.executable, "-m", "goldrush_tpu.cli", "help"],
-                       capture_output=True, text=True, cwd="/root/repo")
+    assert "goldrush-jax version" in r.stdout
+    r = subprocess.run([sys.executable, "-m", "goldrush_jax.cli", "help"],
+                       capture_output=True, text=True, cwd=str(REPO))
     assert "Commands:" in r.stdout
-    r = subprocess.run([sys.executable, "-m", "goldrush_tpu.cli", "nope"],
-                       capture_output=True, text=True, cwd="/root/repo")
+    r = subprocess.run([sys.executable, "-m", "goldrush_jax.cli", "nope"],
+                       capture_output=True, text=True, cwd=str(REPO))
     assert r.returncode != 0

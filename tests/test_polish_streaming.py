@@ -10,8 +10,8 @@ import tempfile
 
 import numpy as np
 
-from goldrush_tpu.stages import polish
-from goldrush_tpu.utils import synth
+from goldrush_jax.stages import polish
+from goldrush_jax.utils import synth
 
 
 def test_streaming_matches_in_memory():

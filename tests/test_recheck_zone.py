@@ -10,7 +10,7 @@ semantic change to the predicate fails here rather than (only) costing
 import jax.numpy as jnp
 import numpy as np
 
-from goldrush_tpu.path.engine_util import recheck_zone
+from goldrush_jax.path.engine_util import recheck_zone
 
 S, X, A_MAX = 8, 10, 1          # shipped stride, x-gate, assigned_max
 

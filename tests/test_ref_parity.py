@@ -4,7 +4,7 @@ tests/ref_harness/build.sh compiles the actual reference sources from
 /root/reference (goldrush_path.cpp + read_hashing.cpp + opt.cpp +
 spaced_seeds.cpp + calc_phred_average.cpp) against shim btllib/sdsl/
 sparsehash headers, producing a deterministic single-threaded oracle binary.
-These tests run it and the TPU engine on the same synthetic ONT-like dataset
+These tests run it and the JAX engine on the same synthetic ONT-like dataset
 and require IDENTICAL output path files — the BASELINE.md north star
 ("bit-identical goldtig set on demo reads").
 
@@ -25,7 +25,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from goldrush_tpu.utils import synth as us
+from goldrush_jax.utils import synth as us
 
 HERE = os.path.dirname(__file__)
 HARNESS = os.path.join(HERE, "ref_harness")
@@ -53,8 +53,8 @@ pytestmark = pytest.mark.skipif(
 def test_hash_parity_vs_reference_iterator():
     """JAX/NumPy canonical hashes == the compiled reference
     multiLensfrHashIterator (lockstep + stale tails) on random sequences."""
-    from goldrush_tpu.ops import nthash_np as nth
-    from goldrush_tpu.ops.seeds import make_seed_pattern
+    from goldrush_jax.ops import nthash_np as nth
+    from goldrush_jax.ops.seeds import make_seed_pattern
 
     rng = np.random.default_rng(3)
     seeds = make_seed_pattern(PRESET, 22, 16, 3)
@@ -96,10 +96,10 @@ def _run_ref(reads: str, G: int, prefix: str, silver: bool, workdir: str,
     assert r.returncode == 0, r.stderr[-2000:]
 
 
-def _run_tpu(reads: str, G: int, prefix: str, silver: bool, workdir: str,
+def _run_engine(reads: str, G: int, prefix: str, silver: bool, workdir: str,
              M: int = 3, m: int = 20_000):
-    from goldrush_tpu.config import PathConfig
-    from goldrush_tpu.path.engine import GoldenPathEngine
+    from goldrush_jax.config import PathConfig
+    from goldrush_jax.path.engine import GoldenPathEngine
     cfg = PathConfig(
         input=reads, genome_size=G, kmer_size=22, weight=16, hash_num=3,
         seed_preset=PRESET, prefix_file=os.path.join(workdir, prefix),
@@ -128,22 +128,22 @@ def test_goldtig_parity_full_pipeline(tmp_path):
     M = 3
 
     _run_ref(reads, G, "ref_silver", True, wd, M=M)
-    stats = _run_tpu(reads, G, "tpu_silver", True, wd, M=M)
+    stats = _run_engine(reads, G, "eng_silver", True, wd, M=M)
     assert stats.vote_overflow == 0   # vote_topk truncation never engaged
 
     ref_silvers = sorted(f for f in os.listdir(wd)
                          if f.startswith("ref_silver_") and f.endswith(".fq"))
     assert ref_silvers, "reference produced no silver paths"
     for f in ref_silvers:
-        tpu = os.path.join(wd, f.replace("ref_", "tpu_"))
-        assert os.path.exists(tpu), f"missing {tpu}"
-        assert _files_equal(os.path.join(wd, f), tpu), f"silver diff: {f}"
-    tpu_extra = [f for f in os.listdir(wd)
-                 if f.startswith("tpu_silver_") and f.endswith(".fq")
-                 and f.replace("tpu_", "ref_") not in ref_silvers]
-    assert not [f for f in tpu_extra
+        eng = os.path.join(wd, f.replace("ref_", "eng_"))
+        assert os.path.exists(eng), f"missing {eng}"
+        assert _files_equal(os.path.join(wd, f), eng), f"silver diff: {f}"
+    eng_extra = [f for f in os.listdir(wd)
+                 if f.startswith("eng_silver_") and f.endswith(".fq")
+                 and f.replace("eng_", "ref_") not in ref_silvers]
+    assert not [f for f in eng_extra
                 if os.path.getsize(os.path.join(wd, f))], \
-        f"extra non-empty tpu silver paths: {tpu_extra}"
+        f"extra non-empty engine silver paths: {eng_extra}"
 
     # golden pass over the concatenated silver paths (bin/goldrush:250-251)
     all_fq = os.path.join(wd, "silver_all.fq")
@@ -151,6 +151,6 @@ def test_goldtig_parity_full_pipeline(tmp_path):
         for f in ref_silvers:
             out.write(open(os.path.join(wd, f), "rb").read())
     _run_ref(all_fq, G, "ref_golden", False, wd)
-    _run_tpu(all_fq, G, "tpu_golden", False, wd)
+    _run_engine(all_fq, G, "eng_golden", False, wd)
     assert _files_equal(os.path.join(wd, "ref_golden.fa"),
-                        os.path.join(wd, "tpu_golden.fa")), "goldtig diff"
+                        os.path.join(wd, "eng_golden.fa")), "goldtig diff"

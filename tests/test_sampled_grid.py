@@ -11,9 +11,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.ops.nthash import build_seed_family, hash_at, hash_positions
-from goldrush_tpu.ops.seeds import make_seed_pattern
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.ops.nthash import build_seed_family, hash_at, hash_positions
+from goldrush_jax.ops.seeds import make_seed_pattern
 
 SEEDS = make_seed_pattern("10111011", 8, 6, 3)
 FAM = build_seed_family(SEEDS)
@@ -73,7 +73,7 @@ def test_hash_at_matches_dense_points():
 def test_lasttile_fastpath_matches_dense(stride):
     """stride >= h path: clamp fix-ups restricted to the last tile must stay
     bit-identical to the dense grid for every length residue class."""
-    from goldrush_tpu.ops.nthash import hash_sampled
+    from goldrush_jax.ops.nthash import hash_sampled
     rng = np.random.default_rng(17)
     B, T, TL = 8, 5, 40
     P = T * TL
@@ -92,7 +92,7 @@ def test_lasttile_fastpath_matches_dense(stride):
 
 
 def test_hash_sampled_matches_separate():
-    from goldrush_tpu.ops.nthash import hash_sampled
+    from goldrush_jax.ops.nthash import hash_sampled
     rng = np.random.default_rng(23)
     B, P, S = 3, 240, 8
     codes = rng.integers(0, 4, (B, P + 64)).astype(np.uint8)

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 
 from tests.conftest import FIXTURES
-from goldrush_tpu.ops.cxx_rand import GlibcRand
-from goldrush_tpu.ops.seeds import make_seed_pattern, care_positions
-from goldrush_tpu.ops.phred import (phred_stats, phred_stats_block, sum_phred,
+from goldrush_jax.ops.cxx_rand import GlibcRand
+from goldrush_jax.ops.seeds import make_seed_pattern, care_positions
+from goldrush_jax.ops.phred import (phred_stats, phred_stats_block, sum_phred,
                                     calc_median_phred)
 
 

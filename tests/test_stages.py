@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.stages import mapping, polish, tigmint
+from goldrush_jax.utils import synth
+from goldrush_jax.stages import mapping, polish, tigmint
 
 RNG = np.random.default_rng(23)
 
@@ -99,7 +99,7 @@ def test_molecule_intervals_split_by_dist():
 
 
 def test_racon_polisher_fixes_substitutions():
-    from goldrush_tpu.stages.racon import polish_with_racon
+    from goldrush_jax.stages.racon import polish_with_racon
     g = synth.random_genome(20_000, seed=49)
     reads = [s for _, s, _ in synth.simulate_reads(g, 50, 5000, seed=50,
                                                    err_rate=0.03)]

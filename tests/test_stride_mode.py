@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.utils import synth
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.io import fastq
-from goldrush_tpu.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.io import fastq
+from goldrush_jax.path.engine import GoldenPathEngine
 
 CFG = dict(genome_size=60_000, kmer_size=22, weight=16, hash_num=3,
            seed_preset="1011011110110111101101", tile_length=250,

@@ -14,10 +14,10 @@ import os
 import pytest
 
 import tests.conftest  # noqa: F401
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.io import fastq
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.io import fastq
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
 
 PRESET = "1011011110110111101101"
 G = 60_000

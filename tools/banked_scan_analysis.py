@@ -8,25 +8,25 @@ table ops keep every per-device buffer at ~1/model_shards of the filter.
 Evidence recorded in ARCHITECTURE.md (VERDICT r3 item 2).
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-     GOLDRUSH_PLATFORM=cpu python tools/banked_scan_analysis.py
+     JAX_PLATFORMS=cpu python tools/banked_scan_analysis.py
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("GOLDRUSH_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8").strip()
 
 import numpy as np  # noqa: E402
-import goldrush_tpu  # noqa: E402,F401
+import goldrush_jax  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from goldrush_tpu.config import PathConfig  # noqa: E402
-from goldrush_tpu.path.engine import GoldenPathEngine  # noqa: E402
+from goldrush_jax.config import PathConfig  # noqa: E402
+from goldrush_jax.path.engine import GoldenPathEngine  # noqa: E402
 
 
 def main():

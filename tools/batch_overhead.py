@@ -1,4 +1,4 @@
-"""Measure per-batch host/relay overhead: bench-config engine runs at
+"""Measure per-batch host/dispatch overhead: bench-config engine runs at
 batch_reads in {32, 64, 128, 256} on the bench dataset (warm cache)."""
 import os
 import sys
@@ -6,9 +6,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import goldrush_tpu  # noqa
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.path.engine import GoldenPathEngine
+import goldrush_jax  # noqa
+from goldrush_jax.config import PathConfig
+from goldrush_jax.path.engine import GoldenPathEngine
 
 PRESET = "1011011110110111101101"
 READS = "/tmp/bench_ds/bench_reads.fq"

@@ -21,9 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-from goldrush_tpu.stages import ntlink, polish, targeted, tigmint  # noqa: E402
-from goldrush_tpu.utils import synth  # noqa: E402
-from goldrush_tpu.utils.stats import assembly_stats  # noqa: E402
+from goldrush_jax.stages import ntlink, polish, targeted, tigmint  # noqa: E402
+from goldrush_jax.utils import synth  # noqa: E402
+from goldrush_jax.utils.stats import assembly_stats  # noqa: E402
 
 K_ID = 21
 

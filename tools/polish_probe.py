@@ -10,12 +10,12 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("GOLDRUSH_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
-from goldrush_tpu.stages import polish  # noqa: E402
-from goldrush_tpu.utils import synth  # noqa: E402
+from goldrush_jax.stages import polish  # noqa: E402
+from goldrush_jax.utils import synth  # noqa: E402
 
 
 def ident(seqs, truth: bytes, k: int = 32) -> float:

@@ -10,7 +10,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import goldrush_tpu  # noqa
+import goldrush_jax  # noqa
 import jax
 import jax.numpy as jnp
 

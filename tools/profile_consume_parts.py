@@ -13,13 +13,13 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import goldrush_tpu  # noqa
+import goldrush_jax  # noqa
 import jax
 import jax.numpy as jnp
 
-from goldrush_tpu.config import PathConfig
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.utils import synth
+from goldrush_jax.config import PathConfig
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
 
 GENOME = 5_000_000
 READ_LEN = 20_000
@@ -48,7 +48,7 @@ eng.fill(reads_path)
 print(f"fill: {time.time()-t0:.2f}s  size={eng.size}")
 
 # build one batch of consume inputs
-from goldrush_tpu.io import ingest
+from goldrush_jax.io import ingest
 TL = cfg.tile_length
 B, T = 64, 32
 codes = np.zeros((B, T * TL + TL), dtype=np.uint8)
@@ -96,7 +96,7 @@ def timeit(name, fn, state, n=3):
 state = timeit("stock (optimistic)", fn, state)
 
 # variant: force live off (use batch classification always)
-import goldrush_tpu.path.engine as em
+import goldrush_jax.path.engine as em
 orig_cond = jax.lax.cond
 eng2 = GoldenPathEngine(cfg)
 eng2.state = state
@@ -107,7 +107,7 @@ def consume_variant(live_off=False, insert_off=False):
     e = GoldenPathEngine(cfg)
     e.phred_min = eng.phred_min
     # monkeypatch: wrap lax.cond to force predicates
-    import goldrush_tpu.mibf.mibf as dmm
+    import goldrush_jax.mibf.mibf as dmm
 
     orig = jax.lax.cond
 
@@ -119,8 +119,8 @@ def consume_variant(live_off=False, insert_off=False):
 
 
 # Simpler attribution: time sub-executables directly.
-from goldrush_tpu.mibf import mibf as dm
-from goldrush_tpu.path.classify import classify_batch
+from goldrush_jax.mibf import mibf as dm
+from goldrush_jax.path.classify import classify_batch
 
 params, params_ins = eng.params, eng.params_ins
 fam, x_eff = eng.fam, eng.x_eff

@@ -19,7 +19,7 @@ def run(tag, **kw):
     reads = bench.make_dataset(workdir)
     t0 = time.time()
     kw.setdefault("mibf_mode", "compressed")
-    from goldrush_tpu.path.engine import GoldenPathEngine
+    from goldrush_jax.path.engine import GoldenPathEngine
     cfg = bench.engine_cfg(reads, workdir, tag + "_w", frame_stride=8,
                            probe_seeds=1, recheck="optimistic",
                            batch_reads=64, **kw)

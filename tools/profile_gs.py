@@ -1,4 +1,4 @@
-"""Targeted gather/scatter shape-dependence microbench on the TPU.
+"""Targeted gather/scatter shape-dependence microbench on the device.
 
 The consume redesign hinges on the true cost of random gathers/scatters
 into the filter arrays.  Flat-1D vs [B, N] 2D forms of the SAME work, all
@@ -11,7 +11,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import goldrush_tpu  # noqa
+import goldrush_jax  # noqa
 import jax
 import jax.numpy as jnp
 from functools import partial

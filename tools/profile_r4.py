@@ -1,4 +1,4 @@
-"""Attribute the round-4 submit-pass cost on the real TPU: run the bench
+"""Attribute the round-4 submit-pass cost on the device: run the bench
 engine with recheck / insert-seeds / stride toggles and diff assign_s.
 
 Usage: python tools/profile_r4.py [variant ...]
@@ -11,10 +11,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import goldrush_tpu  # noqa: F401,E402
-from goldrush_tpu.config import PathConfig  # noqa: E402
-from goldrush_tpu.path.engine import GoldenPathEngine  # noqa: E402
-from goldrush_tpu.utils import synth  # noqa: E402
+import goldrush_jax  # noqa: F401,E402
+from goldrush_jax.config import PathConfig  # noqa: E402
+from goldrush_jax.path.engine import GoldenPathEngine  # noqa: E402
+from goldrush_jax.utils import synth  # noqa: E402
 
 PRESET = "1011011110110111101101"
 GENOME = 5_000_000

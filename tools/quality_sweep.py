@@ -23,10 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-from goldrush_tpu.config import PathConfig  # noqa: E402
-from goldrush_tpu.io import fastq  # noqa: E402
-from goldrush_tpu.path.engine import GoldenPathEngine  # noqa: E402
-from goldrush_tpu.utils import synth  # noqa: E402
+from goldrush_jax.config import PathConfig  # noqa: E402
+from goldrush_jax.io import fastq  # noqa: E402
+from goldrush_jax.path.engine import GoldenPathEngine  # noqa: E402
+from goldrush_jax.utils import synth  # noqa: E402
 
 PRESET = "1011011110110111101101"
 

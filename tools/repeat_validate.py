@@ -25,15 +25,15 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("GOLDRUSH_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
-from goldrush_tpu.config import PipelineConfig, stage_filenames  # noqa: E402
-from goldrush_tpu.io import fastq  # noqa: E402
-from goldrush_tpu.pipeline import run_pipeline  # noqa: E402
-from goldrush_tpu.utils import synth  # noqa: E402
-from goldrush_tpu.utils.stats import assembly_stats  # noqa: E402
+from goldrush_jax.config import PipelineConfig, stage_filenames  # noqa: E402
+from goldrush_jax.io import fastq  # noqa: E402
+from goldrush_jax.pipeline import run_pipeline  # noqa: E402
+from goldrush_jax.utils import synth  # noqa: E402
+from goldrush_jax.utils.stats import assembly_stats  # noqa: E402
 
 K = 64
 

@@ -1,10 +1,8 @@
-"""Scale validation on the real chip: a silver-path run at G=140 Mbp
-filter sizing — the single-chip ceiling, which is set NOT by HBM but by
-XLA TPU's 32-bit indexing (arrays beyond 2^32 elements cannot be
-gathered/scattered/sliced: "indices exceed 32-bits" at compile); at
-occupancy 0.1 that is ~4.3e9 slots = G ~150 Mbp.  Larger genomes route to
-the banked mode (model_shards >= 2: each shard stays < 2^32 elements AND
-within per-chip HBM).  Records fill/assign wall, reads/s and the filter's
+"""Scale validation on the device: a silver-path run at G=140 Mbp
+filter sizing — at occupancy 0.1 that is ~4.3e9 slots, just under 2^32
+elements per filter array.  Larger genomes route to the banked mode
+(model_shards >= 2: each shard stays < 2^32 elements AND within one
+device's memory).  Records fill/assign wall, reads/s and the filter's
 HBM footprint vs the reference's published RAM curve
 (/root/reference/README.md:115-123).
 
@@ -24,10 +22,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import goldrush_tpu  # noqa
-from goldrush_tpu.config import PathConfig, calc_optimal_size
-from goldrush_tpu.path.engine import GoldenPathEngine
-from goldrush_tpu.utils import synth
+import goldrush_jax  # noqa
+from goldrush_jax.config import PathConfig, calc_optimal_size
+from goldrush_jax.path.engine import GoldenPathEngine
+from goldrush_jax.utils import synth
 
 PRESET = "1011011110110111101101"
 G_SIZING = 140_000_000
